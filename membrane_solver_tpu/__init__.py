@@ -1,13 +1,13 @@
-"""membrane_solver_tpu — a TPU-native Surface-Evolver-style membrane energy minimizer.
+"""membrane_solver_tpu — a GPU-accelerated Surface-Evolver-style membrane energy minimizer.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-``AvishaiBarnoy/membrane_solver`` (see /root/reference): triangulated-mesh
-energy minimization over vertex positions and per-vertex bilayer tilt fields,
-with pluggable energy functionals and hard constraints, Evolver-style mesh
-operations (refine / equiangulate / vertex-average), an interactive CLI, and
-a benchmark + acceptance-test harness.
+A ground-up JAX/XLA rebuild of the capabilities of
+``AvishaiBarnoy/membrane_solver``: triangulated-mesh energy minimization over
+vertex positions and per-vertex bilayer tilt fields, with pluggable energy
+functionals and hard constraints, Evolver-style mesh operations (refine /
+equiangulate / vertex-average), an interactive CLI, and a benchmark +
+acceptance-test harness.
 
-Architecture (TPU-first, not a port):
+Architecture:
 
 - Host layer (`geometry`, `runtime.refinement`, ...): a light entity mesh used
   for I/O, topology surgery, and option/tag bookkeeping.  Topology changes are
@@ -17,19 +17,22 @@ Architecture (TPU-first, not a port):
   (positions, tilts, triangle rows, edge rows, masks, per-facet parameters),
   compiled once with `jax.jit` and re-used across topology changes of the same
   padded capacity.  Gradients come from `jax.grad` through the shared geometry
-  context; hot kernels have fused Pallas implementations.
+  context.
 - Minimization (`runtime.minimizer`): an Evolver-compatible outer loop whose
   inner iteration blocks (energy/gradient assembly, KKT constraint projection,
   Armijo line search with normal-flip safety, tilt inner solves) run as jitted
   fixed-shape `lax.while_loop`s on device.
 
 Precision: the solver runs in float64 (like the reference); importing this
-package enables JAX x64 mode.
+package enables JAX x64 mode.  Work runs on JAX's default device (the GPU
+when one is present); ``JAX_PLATFORMS=cpu`` or the CLI's ``--cpu`` selects
+the host.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 # cached CPU executables log a spurious machine-feature-mismatch ERROR per
 # load (XLA records tuning flags like +prefer-no-gather in the feature list
@@ -40,66 +43,40 @@ os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
 import jax
 
 # Precision: float64 by default (parity with the reference solver).  Set
-# MEMBRANE_SOLVER_X64=0 to run in float32 — the high-throughput mode for TPU
-# hardware, whose f64 support is software-emulated.
+# MEMBRANE_SOLVER_X64=0 to run in float32.
 if os.environ.get("MEMBRANE_SOLVER_X64", "1") not in {"0", "false", "no"}:
     jax.config.update("jax_enable_x64", True)
 
-# Matmul precision: full float32 for every dot/matmul/einsum.  On TPU the
-# DEFAULT matmul precision runs f32 contractions as single-pass bfloat16 on
-# the MXU (~8 mantissa bits), which injected ~1e-2 relative error into the
-# KKT projector solves (G @ G.T, lam @ G in jit_core/tilt_relax) and CG
-# coefficient dots — measured as the 2.6e-3 f32-vs-f64 trajectory deviation
-# on the kozlov lane (benchmarks/f32_parity.json r4) versus 4e-5 for the
-# same lane in IEEE f32 on CPU.  This workload's only large MXU matmuls are
-# the one-hot scatter/gathers, which already pin HIGHEST (device/geo.py:128)
-# because one-hot contractions must be exact; everything else is tiny
-# (k x 3N KKT rows, 3-vector dots), so HIGHEST costs nothing measurable.
-# Override with MEMBRANE_SOLVER_MATMUL_PRECISION=default/high/highest.
-jax.config.update(
-    "jax_default_matmul_precision",
-    os.environ.get("MEMBRANE_SOLVER_MATMUL_PRECISION", "highest"),
-)
+# Matmul precision: full float32 for every dot/matmul/einsum.  On NVIDIA
+# GPUs the default precision may run f32 contractions in TF32 (~10 mantissa
+# bits), which would put ~1e-3 relative error into the KKT projector solves
+# (G @ G.T, lam @ G in jit_core/tilt_relax) and the CG coefficient dots.
+# Every contraction in this workload is small (k x 3N KKT rows, 3-vector
+# dots), so full precision costs little.
+jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent compilation cache: the minimize block recompiles per padded
 # capacity (a refinement ladder hits 3-4 capacities); caching the executables
-# on disk makes every later process start warm.  Disable with
-# MEMBRANE_SOLVER_COMPILE_CACHE=0 or point it elsewhere with =<dir>.
-_cache = os.environ.get("MEMBRANE_SOLVER_COMPILE_CACHE", "1")
-if _cache not in {"0", "false", "no"}:
-    if _cache not in {"1", "true", "yes"}:
-        _cache_dir = _cache
-    else:
-        # partition by host CPU identity: executables cached on a machine
-        # with a different feature set (the VM fleet mixes avx512 variants)
-        # are not merely slow to load — deserializing them can SIGSEGV
-        # inside get_executable_and_time.  The identity comes from RUNTIME
-        # CPUID (utils/cpu_identity.py), not /proc/cpuinfo: the fleet
-        # live-migrates VMs without a reboot, /proc/cpuinfo goes stale at
-        # boot, but LLVM's codegen tuning (+prefer-no-gather/...) follows
-        # what CPUID reports NOW — a /proc-keyed directory served
-        # mismatched AOT entries after such a migration (observed
-        # 2026-08-18).  A per-identity directory means mismatched entries
-        # are never even seen.
-        try:
-            from membrane_solver_tpu.utils.cpu_identity import cpu_fingerprint
+# on disk makes later processes start warm.  JAX itself reads
+# JAX_COMPILATION_CACHE_DIR; without it the cache lives at one fixed path in
+# the checkout.  MEMBRANE_SOLVER_COMPILE_CACHE=0 disables it.
+CACHE_ROOT_DEFAULT = Path(__file__).resolve().parent.parent / ".jax_cache"
 
-            _feat = "c" + cpu_fingerprint()
-        except Exception:
-            _feat = "nofeat"
-        _cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "membrane_solver_tpu", f"xla-{_feat}"
-        )
-    try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        # cache small executables too: the classic lanes compile many
-        # sub-second programs per capacity epoch (a cold cube recipe spends
-        # ~4.5 s in 27 ms compiles that a warm cache loads in ~1 ms each)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.02)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # cache is best-effort; never block solving
-        pass
+
+def compile_cache_dir() -> Path | None:
+    """Directory of the persistent compile cache, or None when disabled."""
+    if os.environ.get("MEMBRANE_SOLVER_COMPILE_CACHE", "1") in {"0", "false", "no"}:
+        return None
+    return Path(os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_ROOT_DEFAULT)
+
+
+_cache_dir = compile_cache_dir()
+jax.config.update("jax_compilation_cache_dir", None if _cache_dir is None else str(_cache_dir))
+if _cache_dir is not None:
+    # cache small executables too: the classic lanes compile many
+    # sub-second programs per capacity epoch
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.02)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 __version__ = "0.1.0"
 

@@ -1,6 +1,6 @@
 """Multi-disk separation sweep analysis.
 
-TPU-native analog of the reference's
+JAX analog of the reference's
 ``membrane_solver/analysis/multidisk_sweep.py:53-449``: scan a directory
 of converged meshes (one per disk separation L), extract observables
 (total/breakdown energies, disk separation, rim tilt angles, max height),

@@ -5,7 +5,7 @@ identifies the disk-boundary ring ("disk"), the first shell outside it
 ("rim"), and the second shell ("outer") by cylindrical radius, orders each by
 azimuth, and matches rows across shells by nearest azimuth.
 
-TPU design note: the reference rebuilds this family from live positions on
+Design note: the reference rebuilds this family from live positions on
 every version-keyed cache miss; here the row selection and azimuth matching
 are resolved at compile time (from the compile-time positions) and the
 geometric quantities (radii, slopes, bases) are recomputed live on device.

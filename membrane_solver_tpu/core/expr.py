@@ -3,7 +3,7 @@
 Parity: reference ``core/expr_eval.py`` (AST-whitelist evaluator used by
 ``defines:`` blocks and expression energies/constraints).
 
-TPU twist: besides scalar host evaluation (`eval_expr`), expressions can be
+Device twist: besides scalar host evaluation (`eval_expr`), expressions can be
 *compiled once* into a JAX-traceable callable (`compile_expr`) so the
 expression energy/constraint modules evaluate vectorized on device instead of
 re-walking the AST per entity per step.

@@ -1,6 +1,6 @@
 """Pure-JAX mesh geometry kernels over padded SoA arrays.
 
-These are the TPU-native equivalents of the reference's vectorized NumPy /
+These are the JAX equivalents of the reference's vectorized NumPy /
 f2py-Fortran geometry kernels:
 
 - triangle normals/areas                (reference geometry/triangle_ops.py:8-40)
@@ -17,9 +17,7 @@ f2py-Fortran geometry kernels:
 
 All functions are shape-polymorphic only in the padded capacity; invalid rows
 are masked so padding contributes exactly zero.  Scatter-adds use
-``.at[].add`` which XLA lowers to deterministic on-chip scatters; a fused
-Pallas path for the hottest combinations lives in
-``membrane_solver_tpu.pallas_kernels``.
+``.at[].add``, the same accumulation as the reference's ``np.add.at``.
 """
 
 from __future__ import annotations
@@ -32,12 +30,6 @@ import jax
 import jax.numpy as jnp
 
 from membrane_solver_tpu.utils.precision import tiny as _tiny
-
-def _effective_backend():
-    from membrane_solver_tpu.utils.placement import effective_backend
-
-    return effective_backend()
-
 
 EPS_AREA = 1e-12
 
@@ -89,9 +81,6 @@ def triangle_geometry(
     )
 
 
-_SCATTER_MATMUL_MAX = int(__import__("os").environ.get("MEMBRANE_SCATTER_MATMUL_MAX", "4000000"))
-
-
 def scatter_add_rows(
     values0: jnp.ndarray,
     values1: jnp.ndarray,
@@ -99,36 +88,7 @@ def scatter_add_rows(
     tri_rows: jnp.ndarray,
     n_rows: int,
 ) -> jnp.ndarray:
-    """Scatter three per-triangle corner value arrays into per-vertex rows.
-
-    TPU: XLA lowers scatter-add with duplicate indices to a serialized loop,
-    which dominates the whole solver on small meshes.  When the incidence
-    matrix fits comfortably (F * Nv below a few M entries) we instead build
-    the per-corner one-hot incidence on the fly (an iota comparison, pure
-    VPU) and accumulate with a single matmul on the MXU — numerically exact
-    (the one-hot entries are 0/1 so the products are exact selections; only
-    the summation order changes).  CPU keeps the native scatter, which is
-    what the reference's np.add.at does.
-    """
-    F = tri_rows.shape[0]
-    use_matmul = (
-        _effective_backend() != "cpu" and F * n_rows <= _SCATTER_MATMUL_MAX
-    )
-    if use_matmul:
-        dtype = values0.dtype
-        iota = jnp.arange(n_rows, dtype=tri_rows.dtype)
-        # (3F, Nv) one-hot incidence for the stacked corners
-        corners = jnp.concatenate([tri_rows[:, 0], tri_rows[:, 1], tri_rows[:, 2]])
-        onehot = (corners[:, None] == iota[None, :]).astype(dtype)
-        vals = jnp.concatenate([values0, values1, values2], axis=0)
-        # HIGHEST: the TPU MXU's default bf16 passes would round the values
-        # (one-hot entries are exact either way); full f32 keeps the matmul
-        # an exact selection + f32-accumulated sum
-        if vals.ndim == 1:
-            return jnp.matmul(vals, onehot, precision=jax.lax.Precision.HIGHEST)
-        return jnp.einsum(
-            "fc,fn->nc", vals, onehot, precision=jax.lax.Precision.HIGHEST
-        )
+    """Scatter three per-triangle corner value arrays into per-vertex rows."""
     out = jnp.zeros((n_rows,) + values0.shape[1:], dtype=values0.dtype)
     out = out.at[tri_rows[:, 0]].add(values0)
     out = out.at[tri_rows[:, 1]].add(values1)

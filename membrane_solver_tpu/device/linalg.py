@@ -1,166 +1,24 @@
-"""Small dense linear algebra that lowers on TPU in float64.
+"""Small dense linear algebra for the KKT solves and 3x3 frame fits.
 
-XLA:TPU implements LU/SVD/eigh only for f32/c64; the solver's parity mode is
-f64 (emulated elementwise arithmetic works fine, factorizations don't).  All
-dense systems in this codebase are tiny (3x3 frames, k x k KKT normal
-equations with k <= a few hundred) and SPD after Tikhonov regularization, so
-explicit elimination in basic ops is both portable and fast:
+All dense systems in this codebase are tiny (3x3 frames, k x k KKT normal
+equations with k <= a few hundred):
 
-- ``solve_spd``: Gauss-Jordan elimination without pivoting (valid for
-  regularized SPD systems) via ``lax.fori_loop`` — replaces
-  ``jnp.linalg.solve`` on every KKT path.
+- ``solve_spd`` / ``make_dense_solver``: LU with partial pivoting
+  (``jnp.linalg.solve`` / ``jax.scipy.linalg.lu_factor``) — the same
+  factorization as the reference's ``np.linalg.solve``.
 - ``smallest_eigvec_3x3`` / ``eigh_3x3``: closed-form symmetric 3x3
   eigendecomposition (trigonometric Cardano + cross-product eigenvectors) —
-  replaces ``jnp.linalg.eigh``/``svd`` in plane/circle fitting.
+  replaces ``jnp.linalg.eigh``/``svd`` in plane/circle fitting, where the
+  calls are batched over thousands of 3x3 systems.
 """
 
 from __future__ import annotations
 
 import jax
-
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 
 from membrane_solver_tpu.utils.precision import degen as _degen, tiny as _tiny
-
-def _effective_backend():
-    from membrane_solver_tpu.utils.placement import effective_backend
-
-    return effective_backend()
-
-
-
-def cholesky(A: jnp.ndarray) -> jnp.ndarray:
-    """Unpivoted Cholesky factor L (A = L L^T) via outer-product updates.
-
-    Stable for SPD matrices without pivoting — the same algorithm family as
-    the reference's np.linalg.cholesky in _solve_kkt_system
-    (runtime/constraint_projection.py:57-63), so near-singular regularized
-    KKT systems project the same way.
-    """
-    n = A.shape[0]
-    rows = jnp.arange(n)
-
-    def body(k, A):
-        pivot = jnp.sqrt(jnp.maximum(A[k, k], _tiny(A.dtype)))
-        col = A[:, k] / pivot
-        col = jnp.where(rows > k, col, 0.0).at[k].set(pivot)
-        mask = (rows[:, None] > k) & (rows[None, :] > k)
-        A = jnp.where(mask, A - col[:, None] * col[None, :], A)
-        return A.at[:, k].set(col)
-
-    return jnp.tril(jax.lax.fori_loop(0, n, body, A))
-
-
-def solve_lower(L: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Forward substitution L y = b (L lower-triangular)."""
-    n = L.shape[0]
-
-    def body(i, y):
-        yi = (b[i] - jnp.dot(L[i], y)) / L[i, i]
-        return y.at[i].set(yi)
-
-    return jax.lax.fori_loop(0, n, body, jnp.zeros_like(b))
-
-
-def solve_upper(U: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Back substitution U x = b (U upper-triangular)."""
-    n = U.shape[0]
-
-    def body(t, x):
-        i = n - 1 - t
-        xi = (b[i] - jnp.dot(U[i], x)) / U[i, i]
-        return x.at[i].set(xi)
-
-    return jax.lax.fori_loop(0, n, body, jnp.zeros_like(b))
-
-
-def solve_gepp(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Gaussian elimination with partial pivoting + back substitution.
-
-    The unblocked right-looking algorithm (LAPACK dgetf2's operation order):
-    at the condition numbers of regularized KKT systems (~1e18) the pivoting
-    choice decides the near-null components, so this tracks np.linalg.solve
-    far better than any unpivoted scheme.
-    """
-    n = A.shape[0]
-    rows = jnp.arange(n)
-    Ab = jnp.concatenate([A, b[:, None]], axis=1)
-
-    def body(k, Ab):
-        colabs = jnp.where(rows >= k, jnp.abs(Ab[:, k]), -1.0)
-        p = jnp.argmax(colabs)
-        rk = Ab[k]
-        rp = Ab[p]
-        Ab = Ab.at[k].set(rp).at[p].set(rk)
-        pivot = Ab[k, k]
-        safe = jnp.where(jnp.abs(pivot) > _tiny(Ab.dtype), pivot, 1.0)
-        factors = jnp.where(rows > k, Ab[:, k] / safe, 0.0)
-        return Ab - factors[:, None] * Ab[k][None, :]
-
-    Ab = jax.lax.fori_loop(0, n, body, Ab)
-    return solve_upper(Ab[:, :n], Ab[:, n])
-
-
-def lu_factor(A: jnp.ndarray):
-    """Factor A once for repeated solves (partial pivoting).
-
-    CPU: LAPACK getrf via jax.scipy (np.linalg.solve = getrf+getrs, so
-    factor-once + solve-many is bit-identical to the reference's repeated
-    np.linalg.solve).  TPU: explicit GEPP storing L (unit lower) and U in
-    one matrix plus the row permutation.
-    """
-    if _effective_backend() == "cpu":
-        import jax.scipy.linalg as jsl
-
-        lu, piv = jsl.lu_factor(A)
-        return ("lapack", lu, piv)
-    n = A.shape[0]
-    rows = jnp.arange(n)
-    cols = jnp.arange(n)
-
-    def body(k, carry):
-        A, perm = carry
-        colabs = jnp.where(rows >= k, jnp.abs(A[:, k]), -1.0)
-        p = jnp.argmax(colabs)
-        rk, rp = A[k], A[p]
-        A = A.at[k].set(rp).at[p].set(rk)
-        pk, pp = perm[k], perm[p]
-        perm = perm.at[k].set(pp).at[p].set(pk)
-        pivot = A[k, k]
-        safe = jnp.where(jnp.abs(pivot) > _tiny(A.dtype), pivot, 1.0)
-        factors = jnp.where(rows > k, A[:, k] / safe, 0.0)
-        upd = (rows[:, None] > k) & (cols[None, :] > k)
-        A = jnp.where(upd, A - factors[:, None] * A[k][None, :], A)
-        return A.at[:, k].set(jnp.where(rows > k, factors, A[:, k])), perm
-
-    LU, perm = jax.lax.fori_loop(0, n, body, (A, rows))
-    return ("gepp", LU, perm)
-
-
-def lu_solve(factors, b: jnp.ndarray) -> jnp.ndarray:
-    """Solve with factors from :func:`lu_factor`."""
-    kind = factors[0]
-    if kind == "lapack":
-        import jax.scipy.linalg as jsl
-
-        return jsl.lu_solve((factors[1], factors[2]), b)
-    _, LU, perm = factors
-    n = LU.shape[0]
-    cols = jnp.arange(n)
-    bp = b[perm]
-
-    def fwd(i, y):
-        li = jnp.where(cols < i, LU[i], 0.0)
-        return y.at[i].set(bp[i] - jnp.dot(li, y))
-
-    y = jax.lax.fori_loop(0, n, fwd, jnp.zeros_like(b))
-
-    def bwd(t, x):
-        i = n - 1 - t
-        ui = jnp.where(cols > i, LU[i], 0.0)
-        return x.at[i].set((y[i] - jnp.dot(ui, x)) / LU[i, i])
-
-    return jax.lax.fori_loop(0, n, bwd, jnp.zeros_like(b))
 
 
 def solve_spd(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -170,20 +28,12 @@ def solve_spd(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     (runtime/constraint_projection.py:57-67): numpy's Cholesky REJECTS the
     near-singular regularized systems these paths produce (duplicated
     constraint rows make A numerically semidefinite), so the reference's
-    effective solver is np.linalg.solve — LU with partial pivoting.  On CPU
-    we call the same LAPACK routine for bit parity; on TPU (no f64 LU in
-    XLA) an explicit partial-pivoting elimination with dgetf2's operation
-    order.  Single system ((n, n), (n,)) — batched callers vmap over it.
+    effective solver is np.linalg.solve — LU with partial pivoting, which is
+    what this calls.  Singular systems yield non-finite solutions, which
+    callers detect (skip semantics).  Single system ((n, n), (n,)) —
+    batched callers vmap over it.
     """
-    if _effective_backend() == "cpu":
-        return jnp.linalg.solve(A, b)
-    if A.dtype == jnp.float32:
-        # XLA ships a blocked f32 LU on TPU; the explicit elimination below
-        # exists only because TPU XLA lacks an f64 LU (which TPUs emulate
-        # anyway).  Singular systems yield non-finite solutions in both
-        # paths, which callers detect (skip semantics).
-        return jnp.linalg.solve(A, b)
-    return solve_gepp(A, b)
+    return jnp.linalg.solve(A, b)
 
 
 def _eigvals_sym3(A):
@@ -253,64 +103,21 @@ def eigh_3x3(A: jnp.ndarray):
     return jnp.stack([l0, l1, l2]), jnp.stack([v0, v1, v2], axis=1)
 
 
-def gj_inverse(A: jnp.ndarray) -> jnp.ndarray:
-    """Explicit inverse via Gauss-Jordan with partial pivoting (TPU-f64 safe)."""
-    n = A.shape[0]
-    rows = jnp.arange(n)
-    Ab = jnp.concatenate([A, jnp.eye(n, dtype=A.dtype)], axis=1)
-
-    def body(k, Ab):
-        colabs = jnp.where(rows >= k, jnp.abs(Ab[:, k]), -1.0)
-        p = jnp.argmax(colabs)
-        rk, rp = Ab[k], Ab[p]
-        Ab = Ab.at[k].set(rp).at[p].set(rk)
-        pivot = Ab[k, k]
-        safe = jnp.where(jnp.abs(pivot) > _tiny(Ab.dtype), pivot, 1.0)
-        row_k = Ab[k] / safe
-        factors = Ab[:, k].at[k].set(0.0)
-        return (Ab - factors[:, None] * row_k[None, :]).at[k].set(row_k)
-
-    Ab = jax.lax.fori_loop(0, n, body, Ab)
-    return Ab[:, n:]
-
-
 def make_dense_solver(A: jnp.ndarray):
-    """Return apply(b) solving A x = b, optimized for factor-once/solve-many.
+    """Return apply(b) solving A x = b: factor once, solve many.
 
-    CPU: LAPACK getrf once + getrs per call (bit-identical to repeated
-    np.linalg.solve).  TPU: one-time explicit Gauss-Jordan inverse; each
-    apply is then a single matvec/matmul — sequential triangular
-    substitution inside device loops costs ~30us per row on TPU, which
-    dominates everything else at these sizes.
+    LU factorization (getrf) once and a pair of triangular solves (getrs)
+    per apply — bit-identical to repeated np.linalg.solve on the CPU.
     """
-    if _effective_backend() == "cpu":
-        # CPU: LAPACK getrf/getrs.
-        import jax.scipy.linalg as jsl
-
-        lu, piv = jsl.lu_factor(A)
-        return lambda b: jsl.lu_solve((lu, piv), b)
-    if A.dtype == jnp.float32:
-        # TPU f32: factor with XLA's blocked LU (the sequential Gauss-
-        # Jordan below costs ~20us per row on TPU), then turn the factors
-        # into an explicit inverse by solving against I ONCE — the
-        # per-apply lu_solve would otherwise run two sequential
-        # triangular substitutions per call (~0.2 ms at k=96), which
-        # measured as the single largest term of the inner tilt-CG
-        # iteration on small meshes.
-        import jax.scipy.linalg as jsl
-
-        lu, piv = jsl.lu_factor(A)
-        Ainv = jsl.lu_solve((lu, piv), jnp.eye(A.shape[0], dtype=A.dtype))
-        return lambda b: jnp.matmul(Ainv, b, precision=jax.lax.Precision.HIGHEST)
-    Ainv = gj_inverse(A)
-    return lambda b: Ainv @ b
+    lu, piv = jsl.lu_factor(A)
+    return lambda b: jsl.lu_solve((lu, piv), b)
 
 
 def kabsch(P: jnp.ndarray, Q: jnp.ndarray):
     """Least-squares rigid transform (R, t) mapping P -> Q (Kabsch).
 
-    TPU-f64 safe: right singular vectors of H = P0^T Q0 come from the
-    closed-form symmetric 3x3 eigendecomposition of H^T H; the improper-
+    The right singular vectors of H = P0^T Q0 come from the closed-form
+    symmetric 3x3 eigendecomposition of H^T H; the improper-
     rotation case flips the smallest-singular-value direction, matching the
     reference's det correction (rigid_disk.py:84-100).
     """

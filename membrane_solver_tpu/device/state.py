@@ -1,6 +1,6 @@
 """Device-side problem state: capacity-padded SoA arrays + static spec.
 
-This is the TPU-native replacement for the reference's SoA caches on
+This is the device-side replacement for the reference's SoA caches on
 ``geometry/mesh.py`` (positions_view / tilts_*_view / triangle_row_cache /
 fixed_mask, reference geometry/mesh.py:328-770).  Instead of version-counter
 cache invalidation, the mesh is *compiled* into an immutable bundle of dense

@@ -2,7 +2,7 @@
 
 The reference has no distributed execution (SURVEY §2.10); its only
 embarrassingly-parallel axis is *parameter sweeps over mesh families* (disk
-separations, theta_B scans, benchmark suites).  The TPU-native equivalent:
+separations, theta_B scans, benchmark suites).  The JAX equivalent:
 ``vmap`` the jitted minimize block over a batch of problem members that share
 one topology, and shard the batch axis over a ``jax.sharding.Mesh`` so members
 run on separate chips with zero communication (pure data parallelism over the

@@ -2,7 +2,7 @@
 
 The reference has no model parallelism (SURVEY 2.10); its analog of
 "the model outgrowing one device" is mesh growth under refinement.  The
-TPU-native answer: shard the capacity-padded vertex/triangle axes of the
+JAX answer: shard the capacity-padded vertex/triangle axes of the
 compiled problem across a ``jax.sharding.Mesh`` axis ("tp") with
 ``NamedSharding`` annotations and let XLA insert the collectives — the
 corner gathers become all-gathers of the (small) position array, the

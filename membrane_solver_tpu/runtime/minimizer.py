@@ -4,7 +4,7 @@ Parity: reference ``runtime/minimizer.py`` (Minimizer.minimize outer loop,
 energy/gradient entry points, constraint enforcement after mesh ops,
 auto mesh-quality repair cadence, zero-step early termination).
 
-Division of labor (TPU-native): the per-iteration numerics run on device in
+Division of labor: the per-iteration numerics run on device in
 blocks of up to ``mesh_quality_auto_repair_every`` iterations
 (`jit_core.minimize_block`); this class owns mesh compilation, chunk
 scheduling, the host-side quality-repair/equiangulation hook, and result
@@ -128,21 +128,6 @@ class Minimizer:
         return tuple(sorted((k, repr(v)) for k, v in gp.items()))
 
     def problem(self) -> CompiledProblem:
-        # latency-aware placement is re-applied on EVERY entry, not just on
-        # recompiles: the default device is process-global, so two
-        # minimizers of different sizes interleaving in one process must
-        # each re-establish their own placement before touching the device
-        # (utils/placement.py).
-        from membrane_solver_tpu.device.state import capacity_for
-        from membrane_solver_tpu.utils.placement import apply_placement
-
-        # placement must see the PLANNED capacity, not just the current
-        # size: a recipe that ends large would otherwise start on CPU and
-        # migrate backends (forcing a retrace) mid-run
-        floors = self.capacity_floors or {}
-        apply_placement(
-            capacity_for(max(len(self.mesh.vertices), floors.get("nv", 0)))
-        )
         fp = self._fingerprint_params()
         # Host mesh mutated in place (vertex_average, set-commands, manual
         # edits) or swapped: the device state is stale — drop it WITHOUT

@@ -5,9 +5,10 @@ but Python tracing + StableHLO lowering still re-run per process — on the
 small interactive lanes (cube, catenoid) that cost dominates wall-clock
 (~0.5 s per minimize-block signature; the reference's NumPy loop has no
 such cost).  This wrapper serializes the exported StableHLO of each jitted
-entry to ``~/.cache/membrane_solver_tpu/aot`` keyed by
+entry to ``<compile cache>/aot`` (the persistent XLA cache's directory,
+``membrane_solver_tpu.compile_cache_dir``) keyed by
 
-    (entry name, arg avals/treedef, jax version, backend, source hash)
+    (entry name, arg platform/avals/treedef, jax version, source hash)
 
 and replays it with ``jax.export.deserialize(...).call`` on later
 processes (the replay's XLA compile hits the persistent compilation
@@ -50,30 +51,23 @@ from typing import Any, Callable
 
 import jax
 
-_CACHE_DIR = pathlib.Path(
-    os.environ.get(
-        "MEMBRANE_SOLVER_AOT_CACHE_DIR",
-        os.path.expanduser("~/.cache/membrane_solver_tpu/aot"),
-    )
-)
 _SRC_HASH: str | None = None
 
 
+def _cache_dir() -> pathlib.Path | None:
+    from membrane_solver_tpu import compile_cache_dir
+
+    root = compile_cache_dir()
+    return None if root is None else root / "aot"
+
+
 def enabled() -> bool:
-    # Default ON (round 4).  The round-2/3 "deserialized module
-    # intermittently never returns" hangs are now attributed to the
-    # persistent XLA cache serving STALE-HOST AOT entries during the
-    # replay's compile: the cache directory was keyed by /proc/cpuinfo,
-    # which goes stale across live VM migration, so post-migration
-    # processes executed code compiled for the previous host's tuning
-    # (same hazard class as the documented SIGSEGV/SIGILL loads).  With
-    # the cache keyed by runtime CPUID (utils/cpu_identity.py) the replay
-    # path is clean: 10+ consecutive fresh-process replays of the
-    # spherical_cap and cube lanes, bit-identical energies, incl. a
-    # validated pass (MEMBRANE_SOLVER_AOT_VALIDATE=1).  Set
-    # MEMBRANE_SOLVER_AOT_CACHE=0 to disable (the test suite does: it
-    # creates hundreds of one-shot signatures).
-    return os.environ.get("MEMBRANE_SOLVER_AOT_CACHE", "1") in {"1", "true", "yes"}
+    """On unless MEMBRANE_SOLVER_AOT_CACHE=0 (the test suite's setting: it
+    creates hundreds of one-shot signatures) or the compile cache is off."""
+    return (
+        os.environ.get("MEMBRANE_SOLVER_AOT_CACHE", "1") in {"1", "true", "yes"}
+        and _cache_dir() is not None
+    )
 
 
 def _validate() -> bool:
@@ -190,8 +184,19 @@ def _multi_device(leaf) -> bool:
         return False
 
 
+def _platform(leaves) -> str:
+    """Export platform of the call: the device its array arguments live on
+    (a process may run one problem on the GPU and another on the host)."""
+    for leaf in leaves:
+        devices = getattr(leaf, "devices", None)
+        if callable(devices):
+            platform = next(iter(devices())).platform
+            return "cuda" if platform == "gpu" else platform
+    return "cuda" if jax.default_backend() == "gpu" else jax.default_backend()
+
+
 def _aval_key(leaves) -> str:
-    parts = []
+    parts = [_platform(leaves)]
     for leaf in leaves:
         shape = getattr(leaf, "shape", None)
         dtype = getattr(leaf, "dtype", None)
@@ -219,6 +224,7 @@ def aot_wrap(name: str, static_key: str, jitted: Callable) -> Callable:
 
     from jax import export as jexport
 
+    cache_dir = _cache_dir()
     # per-aval-signature entries: {"fn": replay, "out": desc} or {"fallback": True}
     entries: dict[str, dict] = {}
 
@@ -246,13 +252,12 @@ def aot_wrap(name: str, static_key: str, jitted: Callable) -> Callable:
                     str(in_treedef),
                     akey,
                     jax.__version__,
-                    jax.default_backend(),
                     _source_hash(),
                 ]
             ).encode()
         ).hexdigest()[:32]
-        hlo_path = _CACHE_DIR / f"{name}-{digest}.stablehlo"
-        out_path = _CACHE_DIR / f"{name}-{digest}.out.json"
+        hlo_path = cache_dir / f"{name}-{digest}.stablehlo"
+        out_path = cache_dir / f"{name}-{digest}.out.json"
 
         def flat_fn(*ls):
             a = jax.tree_util.tree_unflatten(in_treedef, list(ls))
@@ -272,7 +277,7 @@ def aot_wrap(name: str, static_key: str, jitted: Callable) -> Callable:
                 out_path.unlink(missing_ok=True)
 
         try:
-            exp = jexport.export(jax.jit(flat_fn))(*leaves)
+            exp = jexport.export(jax.jit(flat_fn), platforms=[_platform(leaves)])(*leaves)
             data = exp.serialize()
             # the output structure descriptor comes from an abstract
             # evaluation of the wrapped callable (no FLOPs)
@@ -289,15 +294,15 @@ def aot_wrap(name: str, static_key: str, jitted: Callable) -> Callable:
 
                 for a, b in zip(ref_leaves, out_leaves, strict=True):
                     _np.testing.assert_array_equal(_np.asarray(a), _np.asarray(b))
-            _CACHE_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=_CACHE_DIR, suffix=".tmp")
-            with os.fdopen(fd, "wb") as fh:
-                fh.write(data)
-            os.replace(tmp, hlo_path)
-            fd, tmp = tempfile.mkstemp(dir=_CACHE_DIR, suffix=".tmp")
-            with os.fdopen(fd, "w") as fh:
-                fh.write(json.dumps(desc))
-            os.replace(tmp, out_path)
+            cache_dir.mkdir(parents=True, exist_ok=True)
+            # write each file under a writer-private name, then rename: a
+            # reader never sees a partial file (two writers of one digest
+            # write identical bytes)
+            for path, payload in ((hlo_path, data), (out_path, json.dumps(desc).encode())):
+                fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".tmp")
+                with os.fdopen(fd, "wb") as fh:
+                    fh.write(payload)
+                os.replace(tmp, path)
             entries[akey] = {"fn": fn, "out": desc}
             return result
         except Exception:

@@ -1,8 +1,7 @@
 """Precision selection.
 
 The solver is float64 by default (the reference is f64 NumPy throughout);
-float32 is the TPU high-throughput mode (MEMBRANE_SOLVER_X64=0), since TPU
-f64 is software-emulated.
+MEMBRANE_SOLVER_X64=0 selects float32.
 """
 
 from __future__ import annotations

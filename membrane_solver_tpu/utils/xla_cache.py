@@ -2,9 +2,8 @@
 
 XLA:CPU's persistent compilation cache occasionally aborts or SIGSEGVs
 inside ``get_executable_and_time`` when deserializing LARGE executables —
-observed for mismatched-host entries (mitigated by the per-CPU-identity
-cache directory in ``membrane_solver_tpu.__init__``) and, independently,
-for MULTI-DEVICE host-platform executables (the 8-virtual-device tensor-
+observed for entries written on a host with other CPU features and,
+independently, for MULTI-DEVICE host-platform executables (the 8-virtual-device tensor-
 parallel minimize block aborted on a warm read even same-host).  Rather
 than risk the crash, multi-device programs never touch the cache: they
 compile fresh per process, which is the test/dryrun scale anyway.
@@ -23,10 +22,9 @@ grown the shared cache directory, full-suite runs SIGSEGV'd 2/2 inside
 ``get_executable_and_time`` on a WARM SINGLE-DEVICE read
 (tests/test_vertex_tilt_lane.py, ~300 green tests in) while the same test
 passed alone in 2.5 s reading the same entry — accumulation-dependent
-again, now at the read site.  Mitigation: the pytest suite points
-MEMBRANE_SOLVER_COMPILE_CACHE at a fresh per-run directory
-(tests/conftest.py), so a suite process never deserializes an executable
-produced outside its own run.
+again, now at the read site.  Mitigation: the pytest suite runs with
+MEMBRANE_SOLVER_COMPILE_CACHE=0 (tests/conftest.py), so a suite process
+never deserializes a cached executable.
 
 Note on the ``cpu_aot_loader.cc`` "machine type ... doesn't match" /
 "could lead to SIGILL" stderr lines seen on warm same-host cache reads:
@@ -36,8 +34,7 @@ that runtime host-CPU detection never reports.  Treat the warning as
 spurious ONLY when the two feature lists printed in the warning differ
 solely in those tuning pseudo-features — that exact diff was verified for
 this host's same-host entries.  Any other difference means a genuinely
-foreign entry (the CPU-identity directory key should exclude these, but
-the key is a mitigation, not a proof): wipe the cache directory, and use
+foreign entry: wipe the cache directory, and use
 ``MEMBRANE_SOLVER_AOT_VALIDATE=1`` (utils/aot_cache.py) to force a
 validated recompile-and-compare pass when in doubt.
 """

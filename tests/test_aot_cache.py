@@ -12,11 +12,12 @@ import pytest
 @pytest.fixture()
 def aot_env(tmp_path, monkeypatch):
     monkeypatch.setenv("MEMBRANE_SOLVER_AOT_CACHE", "1")
-    monkeypatch.setenv("MEMBRANE_SOLVER_AOT_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("MEMBRANE_SOLVER_COMPILE_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     import membrane_solver_tpu.utils.aot_cache as ac
 
     importlib.reload(ac)
-    yield ac, tmp_path
+    yield ac, tmp_path / "aot"
     monkeypatch.setenv("MEMBRANE_SOLVER_AOT_CACHE", "0")
     importlib.reload(ac)
 

@@ -2,7 +2,7 @@
 
 Parity: reference runtime/steppers/line_search.py:261-529 — Armijo accept
 threshold, 0.7 backtracking, 1.5x growth capped at 10x, non-descent skip,
-normal-flip safety, decrease_only rule; plus the TPU batched form's
+normal-flip safety, decrease_only rule; plus the batched form's
 contract that its decisions are identical to the sequential loop.
 """
 
@@ -102,21 +102,6 @@ def test_backtracks_match_hand_simulation(prob):
         alpha *= jit_core.LS_BETA
     accepted = float(res.energy)
     assert abs(accepted - E_t) < 1e-9
-
-
-def test_batched_and_sequential_decisions_identical(prob, monkeypatch):
-    energy = _quadratic(prob)
-    for step in (0.05, 0.7, 5.0, 50.0):
-        monkeypatch.setenv("MEMBRANE_SOLVER_BATCHED_LS", "0")
-        seq = _search(prob, energy, step=step)
-        monkeypatch.setenv("MEMBRANE_SOLVER_BATCHED_LS", "1")
-        bat = _search(prob, energy, step=step)
-        assert bool(seq.success) == bool(bat.success), step
-        assert abs(float(seq.energy) - float(bat.energy)) < 1e-12, step
-        assert abs(float(seq.new_step) - float(bat.new_step)) < 1e-12, step
-        assert np.allclose(
-            np.asarray(seq.state.positions), np.asarray(bat.state.positions)
-        ), step
 
 
 def test_non_descent_direction_skips_search(prob):

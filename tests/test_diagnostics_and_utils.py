@@ -1,5 +1,5 @@
-"""Unit tests for side-rail modules: ordered_set, diagnostics (audit,
-patches), and the backend tuning switches.
+"""Unit tests for side-rail modules: ordered_set and diagnostics (audit,
+patches).
 
 Parity: reference tests cover these surfaces via test_caching.py /
 test_gauss_bonnet.py / diagnostics usage in the minimizer; here each module
@@ -142,35 +142,3 @@ def test_audit_gauss_bonnet_off_by_default():
     mn = _cube_minimizer()
     audit.check_gauss_bonnet(mn)
     assert getattr(mn, "_gauss_bonnet_monitor", None) is None
-
-
-# -------------------------------------------------------------------- tuning
-def test_batched_line_search_env_override(monkeypatch):
-    from membrane_solver_tpu.utils import tuning
-
-    monkeypatch.setenv("MEMBRANE_SOLVER_BATCHED_LS", "0")
-    assert tuning.batched_line_search() is False
-    monkeypatch.setenv("MEMBRANE_SOLVER_BATCHED_LS", "1")
-    assert tuning.batched_line_search() is True
-
-
-def test_batched_line_search_tracks_backend(monkeypatch):
-    from membrane_solver_tpu.utils import placement, tuning
-
-    monkeypatch.delenv("MEMBRANE_SOLVER_BATCHED_LS", raising=False)
-    expected = placement.effective_backend() != "cpu"
-    assert tuning.batched_line_search() is expected
-
-
-# ------------------------------------------------------------- cpu_identity
-def test_cpu_identity_stable_and_nonempty():
-    from membrane_solver_tpu.utils.cpu_identity import cpu_fingerprint, cpu_identity
-
-    ident = cpu_identity()
-    assert isinstance(ident, str) and ident
-    assert cpu_identity() == ident  # stable within a process
-    fp = cpu_fingerprint()
-    assert isinstance(fp, str) and fp
-    assert cpu_fingerprint() == fp
-    # the fingerprint keys the per-host cache directory: path-safe
-    assert "/" not in fp and " " not in fp

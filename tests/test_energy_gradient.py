@@ -8,7 +8,7 @@ import pytest
 
 from membrane_solver_tpu import Minimizer, load_data, parse_geometry
 
-REF_CUBE = Path("/root/reference/meshes/cube.json")
+REF_CUBE = Path(__file__).resolve().parent.parent / "meshes" / "cube.json"
 
 
 @pytest.fixture

@@ -1,7 +1,7 @@
 """Safe-expression evaluator lanes (core/expr.py).
 
 Parity: reference core/expr_eval.py — AST whitelist semantics; plus the
-TPU twist: compile_expr produces a jit/vmap-traceable callable.
+device twist: compile_expr produces a jit/vmap-traceable callable.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Analytic expectations on hand-built inputs: the local-projection
 Gram-Schmidt channel, tangent hygiene for all tilt fields, capacity
-padding, backend-placement thresholds, the persistent-cache guard, the
+padding, the persistent-cache guard, the
 edge-cycle orientation quirk, and the smoothness transport kernels.
 """
 
@@ -21,7 +21,7 @@ from membrane_solver_tpu.energy.tilt_smoothness import minimal_rotation, smoothn
 from membrane_solver_tpu.geometry.mesh import orient_edges_cycle
 from membrane_solver_tpu.meshgen import build
 from membrane_solver_tpu.runtime import jit_core
-from membrane_solver_tpu.utils import placement, xla_cache
+from membrane_solver_tpu.utils import xla_cache
 
 
 # ------------------------------------------------------------- capacity_for
@@ -98,15 +98,6 @@ def test_make_energy_of_positions_matches_total_energy():
     moved = p.state.positions * 1.01
     e1 = float(of_pos(moved, p.state, p.topo, p.params))
     assert e1 != e0  # positions argument is live, not the state copy
-
-
-# ------------------------------------------------------- backend placement
-def test_small_mesh_cpu_max_env_override(monkeypatch):
-    monkeypatch.setenv("MEMBRANE_SOLVER_SMALL_MESH_CPU_MAX", "123")
-    assert placement.small_mesh_cpu_max() == 123
-    monkeypatch.delenv("MEMBRANE_SOLVER_SMALL_MESH_CPU_MAX")
-    # default is the measured dtype-aware threshold (f64 on CPU tests)
-    assert placement.small_mesh_cpu_max() in (8192, 2048)
 
 
 # ------------------------------------------------------ persistent cache guard

@@ -146,34 +146,3 @@ def test_mixed_compact_and_dense_channels():
     mesh = parse_geometry(data)
     p = Minimizer(mesh, quiet=True).problem()
     _compare(p)
-
-
-def test_compact_projector_onehot_matmul_path(monkeypatch):
-    """The TPU slot-incidence matmul path (gather/scatter as one-hot MXU
-    matmuls + explicit-inverse apply) must reproduce the native scatter
-    path: exact 0/1 selections, only duplicate-slot summation order
-    differs (f64 here, so agreement is ~1e-15)."""
-    import jax.numpy as jnp
-
-    from membrane_solver_tpu.runtime import tilt_relax
-
-    mesh = parse_geometry(build("kozlov_1disk"))
-    p = Minimizer(mesh, quiet=True).problem()
-    collector = tilt_relax.make_compact_tilt_collector(p.spec)
-    compact = collector(p.state, p.topo, p.params)
-    n_rows = p.state.positions.shape[0]
-
-    monkeypatch.setenv("MEMBRANE_SLOT_ONEHOT", "0")
-    project_scatter = tilt_relax.make_compact_tilt_projector(compact, n_rows=n_rows)
-    monkeypatch.setenv("MEMBRANE_SLOT_ONEHOT", "1")
-    project_matmul = tilt_relax.make_compact_tilt_projector(compact, n_rows=n_rows)
-
-    rng = np.random.default_rng(11)
-    shape = np.asarray(p.state.tilts_in).shape
-    gin = jnp.asarray(rng.standard_normal(shape))
-    gout = jnp.asarray(rng.standard_normal(shape))
-    si, so = project_scatter(gin, gout)
-    mi, mo = project_matmul(gin, gout)
-    scale = max(float(np.abs(np.asarray(si)).max()), 1.0)
-    np.testing.assert_allclose(np.asarray(mi), np.asarray(si), atol=1e-12 * scale, rtol=0)
-    np.testing.assert_allclose(np.asarray(mo), np.asarray(so), atol=1e-12 * scale, rtol=0)

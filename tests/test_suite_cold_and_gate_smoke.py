@@ -1,7 +1,7 @@
 """Smoke lanes for the suite's cold-process mode and the regression gate.
 
 The reference exercises its perf harness end-to-end (tools/check_performance.py
-re-runs tools/suite.py against benchmarks/inputs/results.json); these lanes do
+re-runs tools/suite.py against its benchmarks/inputs/results.json); these lanes do
 the same for this repo's harness on the cheapest scenario so a mechanism break
 (subprocess driver, history merge, gate exit code) fails in the default suite
 rather than on the next manual perf run.  Thresholds are deliberately huge:
@@ -18,6 +18,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
 
+# the dented_cube lane's final energy on the host CPU in f64, and a best
+# time of that lane on a CPU host, as a suite history would record them
+DENTED_CUBE = {"best_seconds": 0.0495, "energy": 4.957374763980568, "platform": "cpu"}
+
 
 def _suite():
     import suite
@@ -33,19 +37,21 @@ def test_run_cold_records_lane(tmp_path, monkeypatch):
     rec = out["dented_cube"]
     assert rec["cold_seconds"] > 0
     # the cold subprocess must converge to the lane's recorded energy
-    history = json.loads((REPO / "benchmarks" / "results.json").read_text())
-    assert abs(rec["energy"] - history["dented_cube"]["energy"]) <= 1e-8 * max(
-        1.0, abs(history["dented_cube"]["energy"])
+    assert abs(rec["energy"] - DENTED_CUBE["energy"]) <= 1e-8 * max(
+        1.0, abs(DENTED_CUBE["energy"])
     )
     # and the record must have been merged to the (patched) history file
     on_disk = json.loads((tmp_path / "cold.json").read_text())
     assert on_disk["dented_cube"]["energy"] == rec["energy"]
 
 
-def test_check_performance_gate_passes_on_recorded_lane(capsys):
+def test_check_performance_gate_passes_on_recorded_lane(capsys, tmp_path, monkeypatch):
     """The --check gate re-runs a lane without updating history and exits 0
     when within threshold (50x: asserts mechanism, not wall-clock)."""
     suite = _suite()
+    results = tmp_path / "results.json"
+    results.write_text(json.dumps({"dented_cube": DENTED_CUBE}))
+    monkeypatch.setattr(suite, "RESULTS", results)
     rc = suite.main(
         [
             "dented_cube",
@@ -61,5 +67,4 @@ def test_check_performance_gate_passes_on_recorded_lane(capsys):
     )
     assert rc == 0
     # history must be untouched by --no-update
-    history = json.loads((REPO / "benchmarks" / "results.json").read_text())
-    assert "dented_cube" in history
+    assert json.loads(results.read_text()) == {"dented_cube": DENTED_CUBE}

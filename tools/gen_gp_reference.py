@@ -334,12 +334,9 @@ def main() -> int:
         "",
         "| Variable | Meaning |",
         "|---|---|",
-        "| `MEMBRANE_SOLVER_X64` | `1` (default) = float64 everywhere (reference parity); `0` = float32 throughput mode (TPU). |",
-        "| `MEMBRANE_SOLVER_BACKEND` | `auto` (default: small meshes to XLA:CPU), `cpu`, `tpu`/`default` (never re-place). |",
-        "| `MEMBRANE_SOLVER_SMALL_MESH_CPU_MAX` | Row-capacity threshold of the auto placement (default 2048 f32 / 8192 f64). |",
-        "| `MEMBRANE_SOLVER_MATMUL_PRECISION` | XLA matmul precision (default `highest`; TPU f32 contractions are exact, not bf16). |",
-        "| `MEMBRANE_SOLVER_COMPILE_CACHE` | `1` (default) persistent XLA cache keyed by CPU identity; `0` off; a path to relocate. |",
-        "| `MEMBRANE_SOLVER_AOT_CACHE` | `1` (default) flat-leaves AOT export cache for fast process warm starts; `0` off. |",
+        "| `MEMBRANE_SOLVER_X64` | `1` (default) = float64 everywhere (reference parity); `0` = float32. |",
+        "| `MEMBRANE_SOLVER_COMPILE_CACHE` | `1` (default) persistent XLA cache in `JAX_COMPILATION_CACHE_DIR`, else `<checkout>/.jax_cache`; `0` off. |",
+        "| `MEMBRANE_SOLVER_AOT_CACHE` | `1` (default) flat-leaves AOT export cache under `<compile cache>/aot` for fast process warm starts; `0` off. |",
         "| `MEMBRANE_SOLVER_AOT_VALIDATE` | `1`: recompile-and-compare every AOT cache load (paranoia mode). |",
         "",
     ]

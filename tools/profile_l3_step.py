@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Per-phase wall-clock breakdown of one L3 kozlov minimize step.
 
-Methodology mirrors benchmarks/SMALL_LANE_LATENCY.md: each phase runs as the
-same standalone jitted program the minimize block calls, timed with
+Each phase runs as the same standalone jitted program the minimize block
+calls, timed with
 block_until_ready (median of N calls after warmup).  The full step is the
 bench.py L3 protocol (coupled 40-iteration inner tilt solve, fixed step
 size).  Writes benchmarks/l3_step_breakdown.json.
 
-    MEMBRANE_SOLVER_X64=0 python tools/profile_l3_step.py            # TPU f32
+    MEMBRANE_SOLVER_X64=0 python tools/profile_l3_step.py            # GPU f32
     python tools/profile_l3_step.py --platform cpu --steps 5         # debug
 """
 
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from membrane_solver_tpu import Minimizer, load_data, parse_geometry
+    from membrane_solver_tpu import Minimizer, parse_geometry
     from membrane_solver_tpu.meshgen import build
     from membrane_solver_tpu.runtime import jit_core
     from membrane_solver_tpu.runtime import tilt_relax as _tr

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Per-command wall-clock timing for a macro, plus optional deep profiling.
 
-TPU-native analog of the reference's ``tools/profile_macro_hotspots.py``
+JAX analog of the reference's ``tools/profile_macro_hotspots.py``
 (reference README.md:137-146): run an instruction macro one command at a
 time, print per-command timing, and optionally cProfile (host-side
 orchestration) or jax-profile (device trace) one hot command.

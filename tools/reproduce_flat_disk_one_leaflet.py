@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Reproduce the flat one-leaflet disk benchmark (docs/tex/1_disk_flat.tex).
 
-TPU-native port of the reference's scientific acceptance protocol
+JAX port of the reference's scientific acceptance protocol
 (reference tools/reproduce_flat_disk_one_leaflet.py, default scan lanes):
 
 1. load the kozlov free-disk fixture, refine ``refine_level`` times;

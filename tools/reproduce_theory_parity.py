@@ -515,6 +515,6 @@ def main(argv=None) -> int:
 if __name__ == "__main__":
     import jax
 
-    if "--tpu" not in sys.argv:
+    if "--gpu" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    sys.exit(main([a for a in sys.argv[1:] if a != "--tpu"]))
+    sys.exit(main([a for a in sys.argv[1:] if a != "--gpu"]))

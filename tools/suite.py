@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Performance suite over the named benchmark scenarios.
 
-TPU-native analog of the reference's ``tools/suite.py`` (reference
+JAX analog of the reference's ``tools/suite.py`` (reference
 tools/suite.py:29-160): runs each named scenario end-to-end (load ->
 instruction recipe -> final energy), times the wall-clock, compares
 against the best-known history in ``benchmarks/results.json``, and
@@ -457,7 +457,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("names", nargs="*", default=None)
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--platform", default=None, help="jax platform (cpu/tpu)")
+    ap.add_argument("--platform", default=None, help="jax platform (cpu/gpu)")
     ap.add_argument("--check", action="store_true",
                     help="regression gate: fail on >--threshold x slowdown")
     ap.add_argument("--threshold", type=float, default=1.5)

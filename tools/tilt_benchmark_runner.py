@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Evaluate tilt benchmark lanes and print energy/tilt/divergence summaries.
 
-TPU-native analog of the reference's ``tools/tilt_benchmark_runner.py``
+JAX analog of the reference's ``tools/tilt_benchmark_runner.py``
 (248 LoC): for each tilt lane (generated by meshgen, or explicit mesh
 paths), relax the tilt field, then report per-leaflet tilt magnitude
 statistics, P1 divergence statistics, and the energy breakdown.
